@@ -5,21 +5,21 @@ Measures Gauss-Newton iterations/s of the edge-sharded distributed optimizers
 
 - `dense`: psum-reduced dense (6K)^2 normal equations + replicated Cholesky.
   Communication per GN iteration: one all-reduce of 36K^2 + 6K f32
-  (~4.7 MB at K=512) — fine on ICI, does not scale past ~1k keyframes.
+  (~4.7 MB at K=512) — O(K^2) wire cost, does not scale past ~1k keyframes.
 - `cg`: matrix-free block-Jacobi CG (solvers/cg.py sharded). Communication
   per GN iteration: one (K,6,6) psum (preconditioner, 144K bytes) + one
   (K,6) psum (gradient) + cg_iters x one (K,6) psum (matvecs, 24K bytes
   each) — O(K) wire cost, the variant that scales with map size.
 
-On real multi-chip/multi-host TPU hardware this measures true ICI/DCN
-scaling; on the CPU `--virtual N` mesh it validates the SPMD program and
-gives a lower-bound sanity check (virtual devices share host cores, so
-virtual "scaling" understates real hardware — BASELINE.md's >=70%-at-2-hosts
-target needs a pod slice to measure).
+On a multi-GPU host this measures real NVLink scaling; on the CPU
+`--virtual N` mesh it validates the SPMD program and gives a lower-bound
+sanity check (virtual devices share host cores, so virtual "scaling"
+understates real hardware — BASELINE.md's >=70%-at-2-hosts target needs
+several hosts to measure).
 
 `--processes N` instead launches N separate OS processes (4 virtual devices
 each) joined via jax.distributed + gloo — the true multi-host code path
-(rgbdslam_tpu/parallel/multihost.py) with real process-boundary collectives.
+(rgbdslam/parallel/multihost.py) with real process-boundary collectives.
 
 Usage:
   python benchmarks/dist_ba_bench.py --devices 1 2 4 8 --virtual 8
@@ -56,7 +56,7 @@ def run_multiprocess(num_processes: int, vertices: int, edges: int,
     procs = []
     for pid in range(num_processes):
         cmd = [
-            sys.executable, "-m", "rgbdslam_tpu.parallel.multihost",
+            sys.executable, "-m", "rgbdslam.parallel.multihost",
             "--coordinator", f"localhost:{port}",
             "--num-processes", str(num_processes),
             "--process-id", str(pid),
@@ -125,14 +125,14 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from rgbdslam_tpu.geometry import se3
-    from rgbdslam_tpu.parallel.dist_ba import (
+    from rgbdslam.geometry import se3
+    from rgbdslam.parallel.dist_ba import (
         distributed_pose_graph_optimize,
         distributed_pose_graph_optimize_cg,
         make_mesh,
         shard_edges,
     )
-    from rgbdslam_tpu.solvers.pose_graph import PoseGraphEdges
+    from rgbdslam.solvers.pose_graph import PoseGraphEdges
 
     K, E = args.vertices, args.edges
     rng = np.random.default_rng(0)
@@ -196,9 +196,9 @@ def main():
         out["caveat"] = (
             f"{args.virtual} virtual CPU devices share {os.cpu_count()} host "
             "cores: scaling_eff here is a program-validity check, not a "
-            "hardware scaling measurement — it UNDERSTATES real ICI scaling "
-            "by construction (BASELINE.md's >=70%-at-2-hosts target needs a "
-            "pod slice)"
+            "hardware scaling measurement — it UNDERSTATES real multi-GPU "
+            "scaling by construction (BASELINE.md's >=70%-at-2-hosts target "
+            "needs two hosts)"
         )
     print(json.dumps(out))
 

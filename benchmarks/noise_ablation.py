@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def build_configs():
-    from rgbdslam_tpu.config import (ExtractorConfig, LoopConfig,
-                                     RansacConfig, SlamConfig)
+    from rgbdslam.config import (ExtractorConfig, LoopConfig,
+                                 RansacConfig, SlamConfig)
 
     ext = ExtractorConfig(num_features=384, num_levels=3, cell_size=6,
                           fast_threshold=12.0, min_response=8.0,
@@ -65,17 +65,17 @@ def build_configs():
 def run_one(name, cfg, frames, noise: bool, seed: int = 0):
     import numpy as np
 
-    from rgbdslam_tpu.eval.ate import ate_rmse
-    from rgbdslam_tpu.geometry.camera import Camera
-    from rgbdslam_tpu.io.synthetic import SyntheticDataset
-    from rgbdslam_tpu.slam.system import SlamSystem
+    from rgbdslam.eval.ate import ate_rmse
+    from rgbdslam.geometry.camera import Camera
+    from rgbdslam.io.synthetic import SyntheticDataset
+    from rgbdslam.slam.system import SlamSystem
 
     cam = Camera(130.0, 130.0, 79.5, 59.5, width=160, height=120)
     ds = SyntheticDataset(n_frames=frames, cam=cam, trajectory="tour",
                           noise=noise, seed=seed)
     system = SlamSystem(cam, cfg, seed=0)
     if name.startswith("voc"):
-        from rgbdslam_tpu.loop.vocabulary import shipped_vocabulary
+        from rgbdslam.loop.vocabulary import shipped_vocabulary
 
         system.load_vocabulary(shipped_vocabulary("svo_fast"))
     t0 = time.perf_counter()

@@ -7,18 +7,19 @@ import time, sys
 import numpy as np
 import jax, jax.numpy as jnp
 
-import rgbdslam_tpu  # noqa
-from rgbdslam_tpu.config import SlamConfig
-from rgbdslam_tpu.frontend.frame import build_frame_features
-from rgbdslam_tpu.frontend.matcher import gather_matched_points, match_frames
-from rgbdslam_tpu.geometry.camera import SYNTHETIC
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.solvers.ransac_se3 import ransac_se3
-from rgbdslam_tpu.solvers.icp import gicp_refine
-from rgbdslam_tpu.ops.orb import _pattern_selectors, extract_patches, _pack_bits
+import rgbdslam  # noqa
+from rgbdslam.config import SlamConfig
+from rgbdslam.frontend.frame import build_frame_features
+from rgbdslam.frontend.matcher import gather_matched_points, match_frames
+from rgbdslam.geometry.camera import SYNTHETIC
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.solvers.ransac_se3 import ransac_se3
+from rgbdslam.solvers.icp import gicp_refine
+from rgbdslam.ops.orb import _pattern_selectors, extract_patches, _pack_bits
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from rgbdslam.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 cfg = SlamConfig()
 cam = SYNTHETIC

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.solvers.ba import BAProblem, local_ba
+from rgbdslam.geometry import se3
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.solvers.ba import BAProblem, local_ba
 
 CAM = Camera(300.0, 300.0, 159.5, 119.5, width=320, height=240)
 
@@ -167,7 +167,7 @@ def test_ba_edge_factors_constrain_poses():
     the edge-consistent trajectory even against noisy landmark terms."""
     import jax
 
-    from rgbdslam_tpu.solvers.ba import BAEdges
+    from rgbdslam.solvers.ba import BAEdges
 
     rng = np.random.default_rng(9)
     problem, Tcw_gt, Xw_gt = make_problem(rng, K=6, px_noise=1.5,

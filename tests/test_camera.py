@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rgbdslam_tpu.geometry import camera as cam_mod
-from rgbdslam_tpu.geometry.camera import TUM_FR1, TUM_FR3, ICL_NUIM, Camera
+from rgbdslam.geometry import camera as cam_mod
+from rgbdslam.geometry.camera import TUM_FR1, TUM_FR3, ICL_NUIM, Camera
 
 
 def test_project_unproject_roundtrip():

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from rgbdslam_tpu.mapping.covisibility import (
+from rgbdslam.mapping.covisibility import (
     best_covisibles,
     connections,
     covisibility_matrix,
     spanning_tree,
 )
-from rgbdslam_tpu.mapping.landmarks import LandmarkStore
+from rgbdslam.mapping.landmarks import LandmarkStore
 
 
 def build_store(obs_lists):

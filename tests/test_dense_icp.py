@@ -3,10 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.solvers.dense_icp import dense_icp, depth_normals, scaled_camera
+from rgbdslam.geometry import se3
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.solvers.dense_icp import dense_icp, depth_normals, scaled_camera
 
 CAM = Camera(160.0, 160.0, 127.5, 95.5, width=256, height=192)
 

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig
-from rgbdslam_tpu.frontend.extractor import Extractor
-from rgbdslam_tpu.frontend.matcher import match_descriptors, match_frames
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
+from rgbdslam.config import ExtractorConfig
+from rgbdslam.frontend.extractor import Extractor
+from rgbdslam.frontend.matcher import match_descriptors, match_frames
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = ExtractorConfig(num_features=512, num_levels=2, cell_size=8,
@@ -87,7 +87,7 @@ def test_binary_patterns_differ():
 
 
 def test_response_maps_finite():
-    from rgbdslam_tpu.ops import fast as fast_ops
+    from rgbdslam.ops import fast as fast_ops
 
     rng = np.random.default_rng(3)
     img = jnp.asarray(rng.integers(0, 256, (120, 160)).astype(np.float32))

@@ -17,11 +17,11 @@ import jax
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import (ExtractorConfig, LoopConfig, SlamConfig)
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.slam.system import SlamSystem
+from rgbdslam.config import (ExtractorConfig, LoopConfig, SlamConfig)
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 
@@ -77,7 +77,7 @@ def test_distributed_flag_degrades_gracefully_on_one_device(monkeypatch):
     guard; VERDICT r4 weak #6) — the reference likewise runs identically
     with or without its backend helpers wired
     (/root/reference/System/Tracking.cpp:20-37)."""
-    import rgbdslam_tpu.slam.system as system_mod
+    import rgbdslam.slam.system as system_mod
 
     monkeypatch.setattr(system_mod.jax, "device_count", lambda *a, **k: 1)
     system = SlamSystem(CAM, _cfg(distributed=True), seed=0)

@@ -8,10 +8,10 @@ import sys
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig
-from rgbdslam_tpu.frontend.extractor import Extractor
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
+from rgbdslam.config import ExtractorConfig
+from rgbdslam.frontend.extractor import Extractor
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
 
 CAM = Camera(80.0, 80.0, 63.5, 47.5, width=128, height=96)
 CFG = ExtractorConfig(num_features=128, num_levels=2, cell_size=8,
@@ -78,7 +78,7 @@ def test_adaptive_no_recompile():
     _, gray, depth = ds.grab(0)
     ex = Extractor(CAM, CFG, adaptive=True)
     ex(gray, depth)
-    from rgbdslam_tpu.frontend.frame import build_frame_features
+    from rgbdslam.frontend.frame import build_frame_features
 
     misses0 = build_frame_features._cache_size()
     ex.threshold *= 0.7
@@ -92,7 +92,7 @@ def test_cli_synthetic_odometry(tmp_path):
     n = 24  # the sweep covers its full period in n frames; too few frames
     # means multi-dm inter-frame motion
     r = subprocess.run(
-        [sys.executable, "-m", "rgbdslam_tpu.cli",
+        [sys.executable, "-m", "rgbdslam.cli",
          "--dataset", "synthetic:sweep", "--frames", str(n),
          "--out-dir", str(out), "--odometry-only", "--platform", "cpu",
          "--num-features", "1024", "--cell-size", "8",
@@ -108,7 +108,7 @@ def test_cli_synthetic_odometry(tmp_path):
     assert (out / "CameraTrajectory.txt").exists()
     assert (out / "KeyFrameTrajectory.txt").exists()
     # trajectory file parses back
-    from rgbdslam_tpu.io import trajectory as tio
+    from rgbdslam.io import trajectory as tio
 
     ts, poses = tio.load_tum(str(out / "CameraTrajectory.txt"))
     assert len(ts) == n
@@ -120,8 +120,8 @@ def test_adaptive_feedback_in_batched_scan():
     started at a too-high threshold converges into the target band with zero
     extra host round trips, and the host extractor syncs to the evolved
     threshold at completion."""
-    from rgbdslam_tpu.config import SlamConfig
-    from rgbdslam_tpu.slam.tracking import Tracker
+    from rgbdslam.config import SlamConfig
+    from rgbdslam.slam.tracking import Tracker
 
     cfg = SlamConfig(
         extractor=ExtractorConfig(num_features=128, num_levels=2,
@@ -151,7 +151,7 @@ def test_cli_export_octomap(tmp_path):
     out = tmp_path / "out"
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-m", "rgbdslam_tpu.cli",
+        [sys.executable, "-m", "rgbdslam.cli",
          "--dataset", "synthetic:orbit", "--frames", "24",
          "--out-dir", str(out), "--platform", "cpu", "--batch", "8",
          "--num-features", "512", "--cell-size", "8",
@@ -167,7 +167,7 @@ def test_cli_export_octomap(tmp_path):
     assert (out / "octomap.npz").exists()
     assert (out / "octomap_voxels.ply").exists()
     # grid round-trips and has occupied structure on the synthetic walls
-    from rgbdslam_tpu.mapping.occupancy import load_grid, occupied_voxels
+    from rgbdslam.mapping.occupancy import load_grid, occupied_voxels
 
     grid = load_grid(str(out / "octomap.npz"))
     centers, _ = occupied_voxels(grid)
@@ -182,7 +182,7 @@ def test_cli_distributed_flag(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     r = subprocess.run(
-        [sys.executable, "-m", "rgbdslam_tpu.cli",
+        [sys.executable, "-m", "rgbdslam.cli",
          "--dataset", "synthetic:orbit", "--frames", "24",
          "--out-dir", str(out), "--platform", "cpu", "--distributed",
          "--num-features", "512", "--cell-size", "8",

@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig
-from rgbdslam_tpu.frontend.frame import build_frame_features
-from rgbdslam_tpu.frontend.matcher import match_descriptors, match_frames
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.ops import fast as fast_ops
-from rgbdslam_tpu.ops import hamming, image as image_ops
-from rgbdslam_tpu.ops import orb as orb_ops
+from rgbdslam.config import ExtractorConfig
+from rgbdslam.frontend.frame import build_frame_features
+from rgbdslam.frontend.matcher import match_descriptors, match_frames
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.ops import fast as fast_ops
+from rgbdslam.ops import hamming, image as image_ops
+from rgbdslam.ops import orb as orb_ops
 
 CAM = Camera(160.0, 160.0, 127.5, 95.5, width=256, height=192)
 CFG = ExtractorConfig(num_features=256, num_levels=3, cell_size=16)

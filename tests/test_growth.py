@@ -9,14 +9,14 @@ device-resident keyframe bank (one recompile per power-of-two bucket).
 
 import numpy as np
 
-import rgbdslam_tpu  # noqa: F401
-from rgbdslam_tpu.config import (ExtractorConfig, KeyframeConfig, LoopConfig,
-                                 PoseGraphConfig, SlamConfig)
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.slam.system import SlamSystem
-from rgbdslam_tpu.solvers.pose_graph import PoseGraph
+import rgbdslam  # noqa: F401
+from rgbdslam.config import (ExtractorConfig, KeyframeConfig, LoopConfig,
+                             PoseGraphConfig, SlamConfig)
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.slam.system import SlamSystem
+from rgbdslam.solvers.pose_graph import PoseGraph
 
 
 def test_pose_graph_grows_past_budgets():

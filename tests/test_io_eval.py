@@ -5,10 +5,10 @@ import io
 import jax.numpy as jnp
 import numpy as np
 
-from rgbdslam_tpu.eval.ate import align_umeyama, associate, ate_rmse, rpe
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io import synthetic, trajectory
-from rgbdslam_tpu.io.synthetic import SyntheticDataset, render_frame
+from rgbdslam.eval.ate import align_umeyama, associate, ate_rmse, rpe
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io import synthetic, trajectory
+from rgbdslam.io.synthetic import SyntheticDataset, render_frame
 
 
 def _random_traj(n, rng):
@@ -114,7 +114,7 @@ def test_render_frame_shapes_and_depth_consistency():
 
     # Depth must be geometrically consistent: backproject pixel -> world point
     # must lie on a wall of the box.
-    from rgbdslam_tpu.geometry import camera as cm
+    from rgbdslam.geometry import camera as cm
 
     pts_c = np.asarray(cm.depth_to_points(SMALL_CAM, depth))
     Twc = ds.poses_twc[0]
@@ -145,7 +145,7 @@ def test_poses_are_rigid():
 
 
 def test_html_viewer_export(tmp_path):
-    from rgbdslam_tpu.viz.export import save_html_viewer
+    from rgbdslam.viz.export import save_html_viewer
 
     rng = np.random.default_rng(0)
     xyz = rng.normal(size=(500, 3)).astype(np.float32)

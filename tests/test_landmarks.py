@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig, SlamConfig
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.mapping.landmarks import LandmarkStore
-from rgbdslam_tpu.slam.system import SlamSystem
+from rgbdslam.config import ExtractorConfig, SlamConfig
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.mapping.landmarks import LandmarkStore
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 

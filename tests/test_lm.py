@@ -16,12 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.solvers.ba import BAProblem, _ba_cost, local_ba
-from rgbdslam_tpu.solvers.cg import optimize_pose_graph_cg
-from rgbdslam_tpu.solvers.pose_graph import (PoseGraphEdges, graph_cost,
-                                             optimize_pose_graph)
+from rgbdslam.geometry import se3
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.solvers.ba import BAProblem, _ba_cost, local_ba
+from rgbdslam.solvers.cg import optimize_pose_graph_cg
+from rgbdslam.solvers.pose_graph import (PoseGraphEdges, graph_cost,
+                                         optimize_pose_graph)
 
 CAM = Camera(fx=200.0, fy=200.0, cx=80.0, cy=60.0, width=160, height=120)
 
@@ -151,7 +151,7 @@ def test_cg_lm_matches_dense_lm():
 def test_distributed_lm_matches_single():
     """The edge-sharded LM (the live distributed backend path) agrees with
     the single-device dense LM on the same problem."""
-    from rgbdslam_tpu.parallel.dist_ba import (
+    from rgbdslam.parallel.dist_ba import (
         distributed_pose_graph_optimize_cg, make_mesh, shard_edges)
 
     if jax.device_count() < 2:
@@ -170,8 +170,8 @@ def test_distributed_lm_matches_single():
 def test_lm_lambda0_field_is_live():
     """PoseGraphConfig.lm_lambda0 reaches the host PoseGraph (the field was
     defined-but-dead through round 3)."""
-    from rgbdslam_tpu.config import SlamConfig
-    from rgbdslam_tpu.solvers.pose_graph import PoseGraph
+    from rgbdslam.config import SlamConfig
+    from rgbdslam.solvers.pose_graph import PoseGraph
 
     cfg = SlamConfig()
     pg = PoseGraph(8, 8, lm_lambda0=cfg.pose_graph.lm_lambda0)

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rgbdslam_tpu.config import LoopConfig
-from rgbdslam_tpu.loop.bow import bow_scores, bow_vector
-from rgbdslam_tpu.loop.codebook import quantize, train_codebook
-from rgbdslam_tpu.loop.detector import LoopDetector
+from rgbdslam.config import LoopConfig
+from rgbdslam.loop.bow import bow_scores, bow_vector
+from rgbdslam.loop.codebook import quantize, train_codebook
+from rgbdslam.loop.detector import LoopDetector
 
 
 def random_desc(rng, n):
@@ -37,7 +37,7 @@ def test_codebook_recovers_clusters():
         jnp.asarray(desc), jnp.asarray(valid), vocab_size=8, iters=10,
     )
     # each true center should be close to some learned word
-    from rgbdslam_tpu.ops.hamming import hamming_distance_matrix
+    from rgbdslam.ops.hamming import hamming_distance_matrix
 
     d = np.asarray(hamming_distance_matrix(jnp.asarray(centers), words))
     assert d.min(axis=1).max() <= 12, d.min(axis=1)
@@ -49,7 +49,7 @@ def test_quantize_is_nearest():
     words = jnp.asarray(random_desc(rng, 16))
     desc = jnp.asarray(random_desc(rng, 32))
     assign = np.asarray(quantize(desc, words))
-    from rgbdslam_tpu.ops.hamming import hamming_distance_matrix
+    from rgbdslam.ops.hamming import hamming_distance_matrix
 
     d = np.asarray(hamming_distance_matrix(desc, words))
     np.testing.assert_array_equal(assign, d.argmin(axis=1))
@@ -126,7 +126,7 @@ def test_detector_distinguishes_places():
 
 
 def test_vocabulary_save_load_roundtrip(tmp_path):
-    from rgbdslam_tpu.loop.vocabulary import load_vocabulary, save_vocabulary
+    from rgbdslam.loop.vocabulary import load_vocabulary, save_vocabulary
 
     rng = np.random.default_rng(10)
     desc = random_desc(rng, 256)
@@ -141,7 +141,7 @@ def test_vocabulary_save_load_roundtrip(tmp_path):
 
 
 def test_detector_with_pretrained_vocab(tmp_path):
-    from rgbdslam_tpu.loop.vocabulary import save_vocabulary
+    from rgbdslam.loop.vocabulary import save_vocabulary
 
     rng = np.random.default_rng(11)
     train = random_desc(rng, 512)
@@ -169,7 +169,7 @@ def test_detector_with_pretrained_vocab(tmp_path):
 
 def test_vocabulary_training_tool(tmp_path):
     """End-to-end offline vocabulary training over a synthetic dataset."""
-    from rgbdslam_tpu.loop import vocabulary as voc
+    from rgbdslam.loop import vocabulary as voc
 
     out = str(tmp_path / "voc.npz")
     rc = voc.main(["--dataset", "synthetic:sweep", "--frames", "4",
@@ -187,8 +187,8 @@ def test_float_codebook_retrieval():
     binary-only, so its SIFT/SURF runs would lose loop closure)."""
     import jax.numpy as jnp
 
-    from rgbdslam_tpu.loop.bow import bow_scores, bow_vector
-    from rgbdslam_tpu.loop.codebook import quantize, train_codebook_float
+    from rgbdslam.loop.bow import bow_scores, bow_vector
+    from rgbdslam.loop.codebook import quantize, train_codebook_float
 
     rng = np.random.default_rng(0)
     V, D = 32, 16
@@ -223,10 +223,10 @@ def test_sift_run_builds_bow_database():
     BoW database and run loop detection (VERDICT round 1, weak #8)."""
     import jax.numpy as jnp  # noqa: F401
 
-    from rgbdslam_tpu.config import ExtractorConfig, LoopConfig, SlamConfig
-    from rgbdslam_tpu.geometry.camera import Camera
-    from rgbdslam_tpu.io.synthetic import SyntheticDataset
-    from rgbdslam_tpu.slam.system import SlamSystem
+    from rgbdslam.config import ExtractorConfig, LoopConfig, SlamConfig
+    from rgbdslam.geometry.camera import Camera
+    from rgbdslam.io.synthetic import SyntheticDataset
+    from rgbdslam.slam.system import SlamSystem
 
     cam = Camera(100.0, 100.0, 79.5, 59.5, width=160, height=120)
     cfg = SlamConfig(
@@ -254,7 +254,7 @@ def test_sift_run_builds_bow_database():
     norms = np.abs(ld.bow_db[: ld.count]).sum(axis=1)
     assert (norms > 0).all()
     # retrieval machinery produces finite scores against the database
-    from rgbdslam_tpu.loop.bow import bow_scores
+    from rgbdslam.loop.bow import bow_scores
 
     scores = np.asarray(bow_scores(
         jnp.asarray(ld.bow_db[ld.count - 1]),

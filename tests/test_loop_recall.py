@@ -4,7 +4,7 @@ weak #4 / next-round #6).
 
 Builds a 160-keyframe, 3.2-revolution orbit (every place revisited ~3 times),
 quantizes each keyframe against the committed 4096-word vocabulary
-(rgbdslam_tpu/assets/voc_synth_fast_brief.npz — the analog of the reference's
+(rgbdslam/assets/voc_synth_fast_brief.npz — the analog of the reference's
 voc_TUM_FAST_BRIEF.yml.gz, main.cpp:15), and scores retrieval through the
 LoopDetector's full gate stack (min-connected-score floor, id-interval gap,
 top-5; PlaceRecognition/LoopDetector.cpp:28-84)."""
@@ -15,15 +15,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import rgbdslam_tpu  # noqa: F401
-from rgbdslam_tpu.config import ExtractorConfig, LoopConfig
-from rgbdslam_tpu.frontend.frame import build_frame_features
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import orbit_trajectory, render_frame
-from rgbdslam_tpu.loop.detector import LoopDetector
+import rgbdslam  # noqa: F401
+from rgbdslam.config import ExtractorConfig, LoopConfig
+from rgbdslam.frontend.frame import build_frame_features
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import orbit_trajectory, render_frame
+from rgbdslam.loop.detector import LoopDetector
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..",
-                      "rgbdslam_tpu", "assets")
+                      "rgbdslam", "assets")
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = ExtractorConfig(num_features=512, num_levels=3, cell_size=8,
                       fast_threshold=15.0)
@@ -46,7 +46,7 @@ def test_retrieval_recall_at_5_long_multiloop(detector, vocname):
     ld.load_vocabulary(os.path.join(ASSETS, vocname))
     assert ld.words is not None and ld.idf.shape[0] == 4096
 
-    from rgbdslam_tpu.frontend.extractor import Extractor
+    from rgbdslam.frontend.extractor import Extractor
 
     ex = Extractor(CAM, CFG, detector=detector)
     for k in range(K):

@@ -12,13 +12,13 @@ frame; an equal-scale control must recover scale ~= 1.
 import numpy as np
 import pytest
 
-import rgbdslam_tpu  # noqa: F401
-from rgbdslam_tpu.config import ExtractorConfig, LoopConfig, SlamConfig
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.loop.vocabulary import shipped_vocabulary
-from rgbdslam_tpu.mapping.merge import merge_maps
-from rgbdslam_tpu.slam.system import SlamSystem
+import rgbdslam  # noqa: F401
+from rgbdslam.config import ExtractorConfig, LoopConfig, SlamConfig
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.loop.vocabulary import shipped_vocabulary
+from rgbdslam.mapping.merge import merge_maps
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(130.0, 130.0, 79.5, 59.5, width=160, height=120)
 CFG = SlamConfig(
@@ -69,7 +69,7 @@ def test_merge_recovers_depth_scale(sessions):
     # ground truth as a single rigid body: ate_rmse's SE(3) alignment
     # absorbs the map-frame gauge (A's world = its first camera pose), so
     # any misplacement of B *relative to A* shows up as error
-    from rgbdslam_tpu.eval.ate import ate_rmse
+    from rgbdslam.eval.ate import ate_rmse
 
     ts_all = np.concatenate([
         sys_a.store.timestamps[:Ka],

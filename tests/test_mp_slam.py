@@ -51,7 +51,7 @@ def test_two_process_live_slam(tmp_path):
     procs = []
     for pid in range(2):
         cmd = [
-            sys.executable, "-m", "rgbdslam_tpu.parallel.mp_slam",
+            sys.executable, "-m", "rgbdslam.parallel.mp_slam",
             "--coordinator", f"localhost:{port}",
             "--num-processes", "2", "--process-id", str(pid),
             "--devices-per-process", "4",
@@ -91,11 +91,11 @@ def test_two_process_live_slam(tmp_path):
 
     # trajectory parity: single-process run of the same sequence (dense
     # Cholesky solves) vs the 2-process distributed-CG run
-    from rgbdslam_tpu.eval.ate import ate_rmse
-    from rgbdslam_tpu.geometry.camera import Camera
-    from rgbdslam_tpu.io.synthetic import SyntheticDataset
-    from rgbdslam_tpu.parallel.mp_slam import _make_config
-    from rgbdslam_tpu.slam.system import SlamSystem
+    from rgbdslam.eval.ate import ate_rmse
+    from rgbdslam.geometry.camera import Camera
+    from rgbdslam.io.synthetic import SyntheticDataset
+    from rgbdslam.parallel.mp_slam import _make_config
+    from rgbdslam.slam.system import SlamSystem
 
     cfg = dataclasses.replace(_make_config(), distributed=False)
     cam = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)

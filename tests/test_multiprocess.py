@@ -3,7 +3,7 @@
 Launches N real OS processes, each with its own JAX runtime and 4 virtual CPU
 devices, joined through `jax.distributed.initialize` (gloo collectives). The
 edge-sharded matrix-free-CG Gauss-Newton then runs over the 2x4=8-device
-*global* mesh — the same program a multi-host TPU pod runs over ICI+DCN — and
+*global* mesh — the same program a multi-host GPU job runs over NVLink and the network — and
 every process checks the result against its local single-device dense solve.
 
 This is the process-boundary test the reference cannot have (it is a
@@ -39,7 +39,7 @@ def _launch(num_processes: int, port: int, extra=()):
     env["JAX_TRACEBACK_FILTERING"] = "off"
     for pid in range(num_processes):
         cmd = [
-            sys.executable, "-m", "rgbdslam_tpu.parallel.multihost",
+            sys.executable, "-m", "rgbdslam.parallel.multihost",
             "--coordinator", f"localhost:{port}",
             "--num-processes", str(num_processes),
             "--process-id", str(pid),

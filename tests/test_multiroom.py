@@ -5,13 +5,13 @@ proxy — everything visible from everywhere, no occlusion geometry)."""
 
 import numpy as np
 
-import rgbdslam_tpu  # noqa: F401
-from rgbdslam_tpu.config import ExtractorConfig, LoopConfig, SlamConfig
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import (MULTIROOM_BOXES, SyntheticDataset,
-                                       tour_trajectory)
-from rgbdslam_tpu.slam.system import SlamSystem
+import rgbdslam  # noqa: F401
+from rgbdslam.config import ExtractorConfig, LoopConfig, SlamConfig
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import (MULTIROOM_BOXES, SyntheticDataset,
+                                   tour_trajectory)
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(130.0, 130.0, 79.5, 59.5, width=160, height=120)
 CFG = SlamConfig(

@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.native import framepipe as fp
+from rgbdslam.native import framepipe as fp
 
 pytestmark = pytest.mark.skipif(
     not fp.native_available(), reason="native toolchain/libpng unavailable"

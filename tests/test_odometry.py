@@ -8,11 +8,11 @@ ATE, entirely through the public API.
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig, SlamConfig
-from rgbdslam_tpu.eval.ate import ate_rmse, rpe
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.slam.tracking import Tracker, TrackerState
+from rgbdslam.config import ExtractorConfig, SlamConfig
+from rgbdslam.eval.ate import ate_rmse, rpe
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.slam.tracking import Tracker, TrackerState
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = SlamConfig(

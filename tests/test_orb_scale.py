@@ -10,16 +10,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import rgbdslam_tpu  # noqa: F401 — f32 matmul config
-from rgbdslam_tpu.config import ExtractorConfig, RansacConfig
-from rgbdslam_tpu.frontend.extractor import Extractor
-from rgbdslam_tpu.frontend.matcher import (correspondence_weights,
-                                           match_descriptors)
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import look_at_pose, render_frame
-from rgbdslam_tpu.ops.fast import level_quotas
-from rgbdslam_tpu.ops.image import build_scaled_pyramid, scaled_pyramid_shapes
-from rgbdslam_tpu.solvers.ransac_se3 import ransac_se3
+import rgbdslam  # noqa: F401 — f32 matmul config
+from rgbdslam.config import ExtractorConfig, RansacConfig
+from rgbdslam.frontend.extractor import Extractor
+from rgbdslam.frontend.matcher import (correspondence_weights,
+                                       match_descriptors)
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import look_at_pose, render_frame
+from rgbdslam.ops.fast import level_quotas
+from rgbdslam.ops.image import build_scaled_pyramid, scaled_pyramid_shapes
+from rgbdslam.solvers.ransac_se3 import ransac_se3
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = ExtractorConfig(num_features=512, cell_size=8, fast_threshold=15.0,

@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.parallel.dist_ba import (
+from rgbdslam.geometry import se3
+from rgbdslam.parallel.dist_ba import (
     distributed_pose_graph_optimize,
     make_mesh,
     shard_edges,
 )
-from rgbdslam_tpu.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
+from rgbdslam.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
 
 
 def _chain_problem(rng, n=10):
@@ -79,7 +79,7 @@ def test_distributed_converges_to_gt():
 def test_distributed_cg_matches_single_device():
     """The edge-sharded matrix-free-CG solve (O(K) per-device state) matches
     the single-device dense Cholesky on the same graph."""
-    from rgbdslam_tpu.parallel.dist_ba import distributed_pose_graph_optimize_cg
+    from rgbdslam.parallel.dist_ba import distributed_pose_graph_optimize_cg
 
     rng = np.random.default_rng(2)
     gt, est, edges = _chain_problem(rng, n=12)
@@ -99,9 +99,9 @@ def test_distributed_local_ba_matches_unsharded():
     reduces pose error on a noisy multi-view problem."""
     from test_ba import CAM, make_problem, pose_errs
 
-    from rgbdslam_tpu.parallel.dist_ba import (distributed_local_ba,
-                                               shard_landmarks)
-    from rgbdslam_tpu.solvers.ba import local_ba
+    from rgbdslam.parallel.dist_ba import (distributed_local_ba,
+                                           shard_landmarks)
+    from rgbdslam.solvers.ba import local_ba
 
     rng = np.random.default_rng(3)
     problem, Tcw_gt, _ = make_problem(rng, K=6, L=64, M=6)
@@ -157,11 +157,11 @@ def test_pipelined_odometry_matches_tracker():
     per-frame Tracker on the same frames (no backend, same estimator)."""
     import numpy as np
 
-    from rgbdslam_tpu.config import ExtractorConfig, SlamConfig
-    from rgbdslam_tpu.eval.ate import ate_rmse
-    from rgbdslam_tpu.geometry.camera import Camera
-    from rgbdslam_tpu.io.synthetic import SyntheticDataset
-    from rgbdslam_tpu.slam.pipeline import PipelinedOdometry
+    from rgbdslam.config import ExtractorConfig, SlamConfig
+    from rgbdslam.eval.ate import ate_rmse
+    from rgbdslam.geometry.camera import Camera
+    from rgbdslam.io.synthetic import SyntheticDataset
+    from rgbdslam.slam.pipeline import PipelinedOdometry
 
     cam = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
     cfg = SlamConfig(
@@ -184,12 +184,12 @@ def test_dp_odometry_matches_unsharded():
     import jax
     import jax.numpy as jnp
 
-    from rgbdslam_tpu.config import ExtractorConfig, SlamConfig
-    from rgbdslam_tpu.geometry.camera import Camera
-    from rgbdslam_tpu.io.synthetic import SyntheticDataset
-    from rgbdslam_tpu.parallel.dp_odometry import (compose_chain, dp_odometry,
-                                                   make_seq_mesh,
-                                                   _sequence_odometry)
+    from rgbdslam.config import ExtractorConfig, SlamConfig
+    from rgbdslam.geometry.camera import Camera
+    from rgbdslam.io.synthetic import SyntheticDataset
+    from rgbdslam.parallel.dp_odometry import (compose_chain, dp_odometry,
+                                               make_seq_mesh,
+                                               _sequence_odometry)
 
     cam = Camera(100.0, 100.0, 79.5, 59.5, width=160, height=120)
     cfg = SlamConfig(extractor=ExtractorConfig(

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rgbdslam_tpu.config import ExtractorConfig
-from rgbdslam_tpu.frontend.frame import build_frame_features
-from rgbdslam_tpu.frontend.matcher import match_frames, projection_match
-from rgbdslam_tpu.geometry import camera as cam_mod
-from rgbdslam_tpu.geometry.camera import Camera, camera_from_dict
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
+from rgbdslam.config import ExtractorConfig
+from rgbdslam.frontend.frame import build_frame_features
+from rgbdslam.frontend.matcher import match_frames, projection_match
+from rgbdslam.geometry import camera as cam_mod
+from rgbdslam.geometry.camera import Camera, camera_from_dict
+from rgbdslam.io.synthetic import SyntheticDataset
 
 CAM = Camera(160.0, 160.0, 127.5, 95.5, width=256, height=192)
 CFG = ExtractorConfig(num_features=512, num_levels=3, cell_size=8,
@@ -90,7 +90,7 @@ def test_camera_from_dict_and_file(tmp_path):
 
 
 def test_occupancy_save_load(tmp_path):
-    from rgbdslam_tpu.mapping.occupancy import load_grid, make_grid, save_grid
+    from rgbdslam.mapping.occupancy import load_grid, make_grid, save_grid
 
     g = make_grid([-1, -1, -1], [1, 1, 1], resolution=0.25)
     g = g._replace(log_odds=g.log_odds.at[2, 3, 4].set(1.5))
@@ -102,7 +102,7 @@ def test_occupancy_save_load(tmp_path):
 
 
 def test_draw_matches():
-    from rgbdslam_tpu.viz.export import draw_matches
+    from rgbdslam.viz.export import draw_matches
 
     g1 = np.full((40, 60), 50.0)
     g2 = np.full((40, 60), 100.0)

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.config import IcpConfig
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.solvers.icp import gicp_refine, knn_covariances, point_to_plane_icp
-from rgbdslam_tpu.solvers.pnp import motion_only_ba, pnp_ransac, reproj_residuals
+from rgbdslam.config import IcpConfig
+from rgbdslam.geometry import se3
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.solvers.icp import gicp_refine, knn_covariances, point_to_plane_icp
+from rgbdslam.solvers.pnp import motion_only_ba, pnp_ransac, reproj_residuals
 
 CAM = Camera(525.0, 525.0, 319.5, 239.5)
 
@@ -181,7 +181,7 @@ def test_point_to_plane_icp():
 def test_depth_patch_covariances_planar_wall():
     """Covariances from a flat depth wall are pancake-shaped: tiny thickness
     normal to the surface, larger in-plane spread."""
-    from rgbdslam_tpu.solvers.icp import depth_patch_covariances
+    from rgbdslam.solvers.icp import depth_patch_covariances
 
     cam = Camera(100.0, 100.0, 63.5, 47.5, width=128, height=96)
     depth = jnp.full((96, 128), 2.0)
@@ -199,14 +199,14 @@ def test_depth_patch_covariances_planar_wall():
 
 
 def test_gicp_accepts_precomputed_covariances():
-    from rgbdslam_tpu.solvers.icp import depth_patch_covariances
+    from rgbdslam.solvers.icp import depth_patch_covariances
 
     rng = np.random.default_rng(7)
     p1 = make_surface(rng)
     T = np.eye(4, dtype=np.float32)
     T[:3, 3] = [0.02, -0.01, 0.03]
     p2 = (p1 @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
-    from rgbdslam_tpu.solvers.icp import knn_covariances
+    from rgbdslam.solvers.icp import knn_covariances
 
     C1 = knn_covariances(jnp.asarray(p1), jnp.ones(len(p1), bool))
     C2 = knn_covariances(jnp.asarray(p2), jnp.ones(len(p2), bool))
@@ -280,7 +280,7 @@ def test_p3p_matches_cv2_oracle():
     matching one of ours (same solution set up to numerical tolerance)."""
     import cv2
 
-    from rgbdslam_tpu.solvers.pnp import _p3p_grunert
+    from rgbdslam.solvers.pnp import _p3p_grunert
 
     rng = np.random.default_rng(3)
     Kmat = np.array([[CAM.fx, 0, CAM.cx], [0, CAM.fy, CAM.cy], [0, 0, 1]])
@@ -371,7 +371,7 @@ def test_p3p_degenerate_inputs_do_not_poison():
     """Collinear / coincident 3-point samples must not produce NaN poses or
     crash — RANSAC scores them out, but the candidate tensor itself has to
     stay finite (a NaN pose would NaN-poison the batched residual matrix)."""
-    from rgbdslam_tpu.solvers.pnp import _p3p_grunert
+    from rgbdslam.solvers.pnp import _p3p_grunert
 
     # collinear world points
     Xw = np.array([[0.0, 0.0, 2.0], [0.1, 0.0, 2.0], [0.2, 0.0, 2.0]],
@@ -407,7 +407,7 @@ def test_p3p_degenerate_inputs_do_not_poison():
 
 
 def _epnp_on(Xw, uv, w=None):
-    from rgbdslam_tpu.solvers.pnp import _epnp_pose
+    from rgbdslam.solvers.pnp import _epnp_pose
 
     uv_n = np.stack([(uv[:, 0] - CAM.cx) / CAM.fx,
                      (uv[:, 1] - CAM.cy) / CAM.fy], axis=-1).astype(np.float32)

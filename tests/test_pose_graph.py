@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.solvers.pose_graph import PoseGraph, edge_residual
+from rgbdslam.geometry import se3
+from rgbdslam.solvers.pose_graph import PoseGraph, edge_residual
 
 
 def _rand_T(rng, t_scale=1.0, r_scale=0.5):
@@ -137,8 +137,8 @@ def test_optimize_requires_min_vertices():
 def test_cg_matches_dense_solver():
     """Matrix-free PCG Gauss-Newton converges to the same optimum as the
     dense Cholesky solver."""
-    from rgbdslam_tpu.solvers.cg import optimize_pose_graph_cg
-    from rgbdslam_tpu.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
+    from rgbdslam.solvers.cg import optimize_pose_graph_cg
+    from rgbdslam.solvers.pose_graph import PoseGraphEdges, optimize_pose_graph
 
     rng = np.random.default_rng(11)
     n = 16

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.config import RansacConfig
-from rgbdslam_tpu.geometry import se3
-from rgbdslam_tpu.solvers.kabsch import weighted_rigid_transform
-from rgbdslam_tpu.solvers.ransac_se3 import mahalanobis_sq, ransac_se3
+from rgbdslam.config import RansacConfig
+from rgbdslam.geometry import se3
+from rgbdslam.solvers.kabsch import weighted_rigid_transform
+from rgbdslam.solvers.ransac_se3 import mahalanobis_sq, ransac_se3
 
 CFG = RansacConfig()
 
@@ -164,7 +164,7 @@ def test_ransac_all_invalid():
 def test_error_model_variants():
     """PUT-style error models (Solver/Ransac.h:15-19) all recover the
     transform on clean-but-outlier-contaminated data."""
-    from rgbdslam_tpu.geometry.camera import SYNTHETIC
+    from rgbdslam.geometry.camera import SYNTHETIC
 
     rng = np.random.default_rng(7)
     n = 128

@@ -42,9 +42,9 @@ def real_gray():
 def _features(gray_np):
     import jax.numpy as jnp
 
-    from rgbdslam_tpu.config import SlamConfig
-    from rgbdslam_tpu.frontend.frame import build_frame_features
-    from rgbdslam_tpu.geometry.camera import SYNTHETIC
+    from rgbdslam.config import SlamConfig
+    from rgbdslam.frontend.frame import build_frame_features
+    from rgbdslam.geometry.camera import SYNTHETIC
 
     depth = jnp.full(gray_np.shape, 1.5, jnp.float32)
     return build_frame_features(
@@ -62,7 +62,7 @@ def test_detector_fills_budget_on_real_texture(real_gray):
 
 
 def test_matching_recovers_translation_on_real_texture(real_gray):
-    from rgbdslam_tpu.frontend.matcher import match_frames
+    from rgbdslam.frontend.matcher import match_frames
 
     dx, dy = 7, 4
     shifted = np.roll(np.roll(real_gray, dy, axis=0), dx, axis=1)

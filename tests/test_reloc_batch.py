@@ -12,12 +12,12 @@ per-frame path on the same frames; and the acceptance boundary at exactly
 import numpy as np
 import jax.numpy as jnp
 
-import rgbdslam_tpu  # noqa: F401
-from rgbdslam_tpu.config import ExtractorConfig, LoopConfig, SlamConfig
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.slam.system import SlamSystem
+import rgbdslam  # noqa: F401
+from rgbdslam.config import ExtractorConfig, LoopConfig, SlamConfig
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = SlamConfig(

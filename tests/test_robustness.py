@@ -5,11 +5,11 @@ reference's retry + recover() path (System/Tracking.cpp:132-143,195-199)."""
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig, SlamConfig
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.slam.tracking import Tracker, TrackerState
+from rgbdslam.config import ExtractorConfig, SlamConfig
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.slam.tracking import Tracker, TrackerState
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = SlamConfig(
@@ -44,7 +44,7 @@ def test_recovers_from_blank_frames():
     # tail drift bounded: the hold-pose recovery leaves an offset, but
     # relative tracking afterwards must be consistent
     t_err, r_err = 0.0, 0.0
-    from rgbdslam_tpu.eval.ate import rpe
+    from rgbdslam.eval.ate import rpe
 
     t_err, r_err = rpe(ts_e[16:], poses[16:], ds.timestamps[16:],
                        ds.poses_twc[16:])

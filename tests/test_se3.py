@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.geometry import se3
+from rgbdslam.geometry import se3
 
 
 def random_rotvecs(n, rng, max_angle=np.pi - 0.05):

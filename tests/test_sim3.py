@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from rgbdslam_tpu.geometry import se3, sim3
-from rgbdslam_tpu.solvers.pose_graph import (
+from rgbdslam.geometry import se3, sim3
+from rgbdslam.solvers.pose_graph import (
     PoseGraphEdges,
     optimize_sim3_graph,
     sim3_edge_residual,

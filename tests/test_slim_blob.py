@@ -16,11 +16,11 @@ These tests pin:
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import ExtractorConfig, LoopConfig, SlamConfig
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.loop.vocabulary import shipped_vocabulary
-from rgbdslam_tpu.slam.system import SlamSystem
+from rgbdslam.config import ExtractorConfig, LoopConfig, SlamConfig
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.loop.vocabulary import shipped_vocabulary
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = SlamConfig(
@@ -85,7 +85,7 @@ def test_hydrate_host_backfills_exact_rows(slim_run):
 
 
 def test_slim_checkpoint_roundtrip(tmp_path, slim_run):
-    from rgbdslam_tpu.utils.serialization import load_map, save_map
+    from rgbdslam.utils.serialization import load_map, save_map
 
     _, system = slim_run
     path = str(tmp_path / "map.npz")
@@ -125,7 +125,7 @@ def test_slim_trajectory_matches_full_pack():
         s2.track_batch([c[0] for c in chunk], [c[1] for c in chunk],
                        [c[2] for c in chunk])
     s2.finish()
-    from rgbdslam_tpu.eval.ate import ate_rmse
+    from rgbdslam.eval.ate import ate_rmse
 
     t1, p1 = s1.camera_trajectory()
     t2, p2 = s2.camera_trajectory()

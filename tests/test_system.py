@@ -8,16 +8,16 @@ RANSAC loop verification -> global optimization -> trajectory correction.
 import numpy as np
 import pytest
 
-from rgbdslam_tpu.config import (
+from rgbdslam.config import (
     ExtractorConfig,
     LoopConfig,
     PoseGraphConfig,
     SlamConfig,
 )
-from rgbdslam_tpu.eval.ate import ate_rmse
-from rgbdslam_tpu.geometry.camera import Camera
-from rgbdslam_tpu.io.synthetic import SyntheticDataset
-from rgbdslam_tpu.slam.system import SlamSystem
+from rgbdslam.eval.ate import ate_rmse
+from rgbdslam.geometry.camera import Camera
+from rgbdslam.io.synthetic import SyntheticDataset
+from rgbdslam.slam.system import SlamSystem
 
 CAM = Camera(200.0, 200.0, 159.5, 119.5, width=320, height=240)
 CFG = SlamConfig(
@@ -99,7 +99,7 @@ def test_system_relocalizes_after_blackout():
     trajectory matching ground truth again (VERDICT round-1 item 5 —
     beyond the reference, whose recover() only holds the pose,
     System/Tracking.cpp:195-199)."""
-    from rgbdslam_tpu.slam.tracking import TrackerState
+    from rgbdslam.slam.tracking import TrackerState
 
     ds = SyntheticDataset(n_frames=100, cam=CAM, trajectory="orbit",
                           loops=1.15)
@@ -223,7 +223,7 @@ def test_live_export_overlay_and_epoch_gated_octomap(tmp_path):
     assert system.map_epoch >= 1
     final_epoch = int(np.load(tmp_path / "octomap.npz")["epoch"])
     assert final_epoch == system.map_epoch >= 1
-    from rgbdslam_tpu.mapping.occupancy import load_grid, occupied_voxels
+    from rgbdslam.mapping.occupancy import load_grid, occupied_voxels
 
     grid = load_grid(str(tmp_path / "octomap.npz"))
     centers, _cols = occupied_voxels(grid)

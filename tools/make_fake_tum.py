@@ -27,8 +27,8 @@ def main():
     import cv2
     from scipy.spatial.transform import Rotation
 
-    from rgbdslam_tpu.geometry.camera import Camera
-    from rgbdslam_tpu.io.synthetic import SyntheticDataset
+    from rgbdslam.geometry.camera import Camera
+    from rgbdslam.io.synthetic import SyntheticDataset
 
     out = args.out
     os.makedirs(out + "/rgb", exist_ok=True)
